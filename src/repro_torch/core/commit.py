@@ -1,0 +1,224 @@
+"""Dataset commitments: the owner's one-time publication (paper §III-C).
+
+PyTorch counterpart of ``repro.core.commit``; the roots are computed on the
+device of the configuration's backend and kept as host numpy arrays.
+
+``data_root`` must match exactly what ``prover.prove`` computes for the data
+tree of a circuit with ``n_rows`` rows.  ``publish_commitments`` produces a
+:class:`CommitmentManifest` — the *complete* trusted input of a verifier:
+
+* per ``(descriptor, circuit size)`` Merkle roots of every registered base
+  table (the content binding), and
+* the true table **geometry**: per-descriptor row/column counts and published
+  circuit sizes, the node-universe size, and per-edge-table row counts — so
+  the verifier pins a bundle's declared circuit shape (``m_edges`` selector
+  regions, SSSP's ``n_nodes``) against *published* values instead of trusting
+  the prover's bundle.
+
+The manifest is mapping-compatible with the seed's ``{(desc, n_rows): root}``
+dict (iteration, ``in``, ``[]``), so legacy callers keep working.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from dataclasses import dataclass, field as dc_field
+
+import numpy as np
+
+from . import backend as be
+from . import field as F
+from . import hashing as H
+from . import merkle
+from . import prover as pv
+from ..graphdb import tables
+from ..graphdb.storage import GraphDB, pad_pow2
+
+MANIFEST_VERSION = 1
+_LEAF_PREFIX = b"\x00"       # RFC 6962 leaf-domain separation
+
+
+def manifest_digest(raw: bytes, device=None) -> np.ndarray:
+    """The (8,) uint32 digest of canonically encoded manifest bytes: the
+    transparency-log leaf hash ``hash_bytes(0x00 || raw)``
+    (docs/protocol.md §6)."""
+    return H.hash_bytes(_LEAF_PREFIX + bytes(raw), device)
+
+
+class MissingCommitmentError(KeyError):
+    """A proof referenced a base table the owner never published a
+    commitment (or its geometry) for. Verification must not fall back to
+    recomputing roots or trusting shapes from prover-supplied data."""
+
+
+def data_root(data_np: np.ndarray, n_rows: int, cfg: pv.ProverConfig,
+              desc: str = None) -> np.ndarray:
+    """Commitment to a data-column matrix at a given circuit size.
+
+    ``desc`` (optional) names the table in error messages: a width/row-count
+    mismatch is the error an honest owner hits when ``table_sizes`` and an
+    operator's declared shape disagree, so it must be diagnosable."""
+    raw = np.asarray(data_np, np.int64) % F.P
+    if raw.ndim != 2:
+        raise ValueError(
+            f"data columns for table {desc or '<anonymous>'} must be a "
+            f"2-d (n_cols, width) matrix, got shape {raw.shape}")
+    if raw.shape[1] > n_rows:
+        raise ValueError(
+            f"table {desc or '<anonymous>'} has {raw.shape[1]} rows, which "
+            f"do not fit a circuit of n_rows={n_rows}; publish the table at "
+            f"a circuit size >= pad_pow2({raw.shape[1]}) = "
+            f"{pad_pow2(raw.shape[1])} (see commit.table_sizes)")
+    padded = np.zeros((raw.shape[0], n_rows), np.int64)
+    padded[:, : raw.shape[1]] = raw
+    # roots are backend-independent (bit-identical parity); the publication
+    # runs under cfg's backend and device
+    with be.use(cfg.backend, cfg.device) as (_, device):
+        lde = pv._lde(F.tensor(padded, device), cfg.blowup, cfg.shift)
+        return F.to_numpy(merkle.commit(lde.T).root)
+
+
+def table_sizes(db: GraphDB, n_cols: int) -> list:
+    """Circuit sizes a base table of width ``n_cols`` must be published at.
+
+    Operators may size their circuit above the table width: set-based
+    expansion needs pad_pow2(max(m, |S|+2, out_count)) rows, where the
+    output count is at most 2m (bidirectional) and the start set is at most
+    the node universe.  Publishing every power of two from pad_pow2(m) up to
+    max(pad_pow2(2m), pad_pow2(n_nodes + 2)) covers every size an honest
+    plan can request — the verifier never recomputes a base-table root.
+    """
+    lo = pad_pow2(n_cols)
+    hi = max(pad_pow2(2 * n_cols), pad_pow2(db.n_nodes + 2), lo)
+    sizes = []
+    n = lo
+    while n <= hi:
+        sizes.append(n)
+        n *= 2
+    return sizes
+
+
+@dataclass(frozen=True)
+class TableGeometry:
+    """Published geometry of one base table: the verifier-trusted shape."""
+    desc: str
+    n_cols: int          # column-matrix height (the layout width)
+    n_table_rows: int    # TRUE row count — pins m_edges selector regions
+    sizes: tuple         # circuit sizes a commitment was published at
+    columns: tuple = ()  # registered column names, () if unnamed
+
+
+@dataclass
+class CommitmentManifest(Mapping):
+    """The owner's published trust root: per-size Merkle roots + geometry.
+
+    A read-only :class:`~collections.abc.Mapping` over the legacy
+    ``{(desc, n_rows): root}`` roots dict; lookups that must fail closed
+    use :meth:`root` / :meth:`geometry`, which raise
+    :class:`MissingCommitmentError`.
+
+    :meth:`to_bytes` is the canonical wire encoding (payload kind 4 of
+    :mod:`repro_torch.core.wire`, spec in ``docs/protocol.md`` §4) — the bytes the
+    owner publishes on a transparency log — and :meth:`digest` is the leaf
+    hash of those bytes, the value every :class:`ProofBundle` proven against
+    this manifest carries and the verifier pins.
+    """
+    version: int
+    n_nodes: int            # node-universe size (pins SSSP's n_nodes)
+    edge_counts: dict       # GraphDB edge-table name -> true row count
+    tables: dict            # desc -> TableGeometry
+    roots: dict = dc_field(default_factory=dict)  # (desc, n_rows) -> root
+    _digest: object = dc_field(default=None, repr=False, compare=False)
+
+    # -- canonical serialization + digest -----------------------------------
+    def to_bytes(self) -> bytes:
+        """Canonical, deterministic wire bytes (``encode(decode(b)) == b``);
+        what a transparency log stores as one leaf."""
+        from . import wire
+        return wire.encode_manifest(self)
+
+    @staticmethod
+    def from_bytes(raw: bytes) -> "CommitmentManifest":
+        """Decode canonical manifest bytes; any malformed / non-canonical /
+        version-skewed input raises :class:`~repro_torch.core.wire.WireFormatError`."""
+        from . import wire
+        return wire.decode_manifest(raw)
+
+    def digest(self, device=None):
+        """The (8,) uint32 manifest digest (transparency-log leaf hash of
+        the canonical bytes), hashed on ``device`` (default: the active
+        backend's).  Memoized: treat a manifest as immutable once
+        published."""
+        if self._digest is None:
+            self._digest = manifest_digest(self.to_bytes(), device)
+        return self._digest
+
+    # -- trusted lookups (fail closed) --------------------------------------
+    def geometry(self, desc: str) -> TableGeometry:
+        try:
+            return self.tables[desc]
+        except KeyError:
+            raise MissingCommitmentError(
+                f"no published geometry for base table {desc!r}") from None
+
+    def root(self, desc: str, n_rows: int) -> np.ndarray:
+        try:
+            return self.roots[(desc, n_rows)]
+        except KeyError:
+            raise MissingCommitmentError(
+                f"no published commitment for base table {desc!r} at "
+                f"{n_rows} rows") from None
+
+    def edge_count(self, table_name: str) -> int:
+        try:
+            return self.edge_counts[table_name]
+        except KeyError:
+            raise MissingCommitmentError(
+                f"no published row count for edge table {table_name!r}") \
+                from None
+
+    def drop(self, *descs: str) -> "CommitmentManifest":
+        """A copy without the given descriptors (tests / partial deployments:
+        verifying a step over a dropped table raises MissingCommitmentError).
+
+        The copy keeps the *parent's* digest: a partial deployment still
+        trusts the owner's published manifest — it is merely missing local
+        root material — so digest-pinned bundles fail with
+        MissingCommitmentError (a deployment problem), not a digest mismatch
+        (an authenticity problem)."""
+        gone = set(descs)
+        return CommitmentManifest(
+            self.version, self.n_nodes, dict(self.edge_counts),
+            {d: g for d, g in self.tables.items() if d not in gone},
+            {k: v for k, v in self.roots.items() if k[0] not in gone},
+            _digest=self.digest())
+
+    # -- legacy mapping interface over the roots ----------------------------
+    def __getitem__(self, key):
+        return self.roots[key]
+
+    def __iter__(self):
+        return iter(self.roots)
+
+    def __len__(self):
+        return len(self.roots)
+
+
+def publish_commitments(db: GraphDB, cfg: pv.ProverConfig = None) \
+        -> CommitmentManifest:
+    """Owner-side: dataset roots per (table descriptor, circuit size) plus
+    the committed geometry the verifier pins circuit shapes against."""
+    cfg = cfg or pv.ProverConfig()
+    descs = tables.all_table_descs()
+    manifest = CommitmentManifest(
+        MANIFEST_VERSION, int(db.n_nodes),
+        {name: len(t) for name, t in db.tables.items()}, {})
+    for desc in descs:
+        cols = tables.base_table_cols(db, desc)
+        sizes = table_sizes(db, cols.shape[1])
+        manifest.tables[desc] = TableGeometry(
+            desc, int(cols.shape[0]), int(cols.shape[1]), tuple(sizes),
+            tables.table_columns(desc))
+        for n_rows in sizes:
+            manifest.roots[(desc, n_rows)] = data_root(cols, n_rows, cfg,
+                                                       desc=desc)
+    return manifest
