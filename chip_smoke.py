@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Run repro_torch's main path on one CUDA card and check it.
+"""Run repro_torch's paths on one CUDA card and check them.
 
     python3 chip_smoke.py                 # every phase (the contract run)
-    python3 chip_smoke.py --only build,parity
+    python3 chip_smoke.py --only build,parity,gp,batch,kernel_api
     python3 chip_smoke.py --trace DIR     # also trace one prove with
                                           # torch.profiler into DIR
 
 Phases, one line each, any failure exits non-zero:
 
-1. build    - compile the CUDA kernels from src/repro_torch/kernels/csrc
-              (one nvcc per source, in parallel, for sm_90a);
-2. parity   - each kernel against its plain PyTorch version on the card,
-              exact equality, with CUDA-event timings of both;
-3. main     - the owner publishes the commitments of an LDBC instance with
-              60,000-row fact tables, proves IS5, writes the bundle's
-              canonical bytes; a verifier holding only
-              TrustAnchor(manifest=...) accepts them and rejects them with
-              one byte of the proof's data root flipped;
-4. backends - the same prove on the plain `torch` backend on the card gives
-              the same canonical bytes;
-5. launches - both kernels were launched during phase 3.
+1. build      - compile the CUDA kernels from src/repro_torch/kernels/csrc
+                (one nvcc per source, in parallel, for sm_90a);
+2. parity     - each kernel against its plain PyTorch version on the card,
+                exact equality, with CUDA-event timings of both and the
+                kernel's device time from torch.profiler;
+3. main       - the owner publishes the commitments of an LDBC instance with
+                60,000-row fact tables, proves IS5, writes the bundle's
+                canonical bytes; a verifier holding only
+                TrustAnchor(manifest=...) accepts them and rejects them with
+                one byte of the proof's data root flipped;
+4. backends   - the same prove on the plain `torch` backend on the card
+                gives the same canonical bytes;
+5. gp         - the grand-product argument (paper Eq. (2)) at that scale:
+                hasCreator's (comment, person) pairs against the same pairs
+                sorted by person, in a 65,536-row circuit; keygen, prove,
+                verify, a tampered witness rejected, and the `torch`
+                backend's proof bytes equal;
+6. batch      - prove_batch of four such lanes, and ZKGraphSession.
+                prove_steps of two IS5 queries' steps, each lane byte for
+                byte its solo proof;
+7. kernel_api - the base-field running product, mulmod and fused_mul_add
+                through their own entry points;
+8. launches   - every kernel launched on the path it names (main: Poseidon
+                and the NTT; gp and batch: the Fp4 running product;
+                kernel_api: the other three).
 
-Before the last line it prints the card's name and power limit, and one
-JSON object describing each kernel; the last line is the result object.
-Without a CUDA device, or outside a checkout of the repository, it exits
-non-zero and prints no result.
+The launch counts are set to 0 just before each path (phases 3, 5, 6, 7)
+and read just after it.  Before the last line it prints the card's name
+and power limit, and one JSON object describing each kernel; the last line
+is the result object.  Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -64,8 +78,51 @@ NTT_SHAPES = ((1, 64), (7, 32), (9, 128), (2, 3, 16), (4, 65536), (2, 262144),
               (2, 131072), (2, 524288))
 TIMED_POSEIDON = 262144            # leaf hashing of a 65,536-row circuit
 TIMED_NTT = (2, 262144)            # coset LDE of IS5's two data columns
+# running products: the gp path's 65,536-row circuit, and past it up to
+# 2^19; field ops: flat, ragged and the kernel_api path's shapes
+GP_SHAPES = (1, 255, 256, 257, 65536, 131072, 524288)
+FIELD_SHAPES = ((1,), (257,), (4, 262144), (2, 524288))
+TIMED_GP_EXT = 65536               # the gp path's circuit rows
+TIMED_GP = 131072                  # the kernel_api path's telescoping check
+TIMED_FIELD = (4, 262144)
+# modular multiplies of one Fp4 product: 16 products and 3 multiplies by W
+FP4_MODMULS = 19
 N_FACTS = 60000                    # the paper's smallest LDBC instance
+GP_ROWS = 65536                    # hasCreator's 60,000 rows, zero-padded
+GP_LANES = 4
 MESSAGE = (1 << 20) + 7
+
+# every kernel of the port: its source, the TPU kernel body it replaces,
+# and the path of this script that must launch it
+KERNELS = {
+    "poseidon_permute": ("src/repro_torch/kernels/csrc/poseidon.cu",
+                         "src/repro/kernels/poseidon/poseidon.py:41", "main"),
+    "ntt_stage": ("src/repro_torch/kernels/csrc/ntt.cu",
+                  "src/repro/kernels/ntt/ntt.py:22", "main"),
+    "grand_product_ext": (
+        "src/repro_torch/kernels/csrc/grand_product.cu",
+        "src/repro/kernels/grand_product/grand_product.py:119", "gp"),
+    "grand_product": ("src/repro_torch/kernels/csrc/grand_product.cu",
+                      "src/repro/kernels/grand_product/grand_product.py:32",
+                      "kernel_api"),
+    "mulmod": ("src/repro_torch/kernels/csrc/fieldops.cu",
+               "src/repro/kernels/fieldops/fieldops.py:139", "kernel_api"),
+    "fused_mul_add": ("src/repro_torch/kernels/csrc/fieldops.cu",
+                      "src/repro/kernels/fieldops/fieldops.py:143",
+                      "kernel_api"),
+}
+# kernels a path must launch besides those that name it
+ALSO_ON = {"batch": ("grand_product_ext",)}
+# the __global__ functions each kernel's wrapper launches
+SYMBOLS = {
+    "poseidon_permute": ("permute_kernel",),
+    "ntt_stage": ("stage_kernel",),
+    "grand_product_ext": ("scan_chunks_kernel", "scan_totals_kernel",
+                          "apply_offsets_kernel"),
+    "mulmod": ("fieldops_kernel",),
+}
+SYMBOLS["grand_product"] = SYMBOLS["grand_product_ext"]
+SYMBOLS["fused_mul_add"] = SYMBOLS["mulmod"]
 
 
 def log(msg: str):
@@ -97,13 +154,104 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, symbols, reps: int = 10) -> float:
+    """The card's own time for one call: the device time of the CUDA
+    kernels whose names contain one of ``symbols``, in a torch.profiler
+    trace of ``reps`` calls, per call.  Unlike :func:`cuda_ms` it leaves out
+    the host's time between the launches.  A 128 MiB write before each call
+    evicts the 50 MB L2 cache, so the inputs come from device memory, as
+    they do on the prover's path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(1 << 24, dtype=torch.int64, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "at::" not in e.key
+             and any(sym in e.key for sym in symbols))
+    if us <= 0:
+        raise AssertionError(f"the trace shows no device time of {symbols}")
+    return us / reps / 1e3
+
+
+def canonical_proof(proof) -> bytes:
+    """Wire bytes of a proof with its wall-clock timings cleared, taken
+    from a decoded copy."""
+    proof = type(proof).from_bytes(proof.to_bytes())
+    proof.timings = {}
+    return proof.to_bytes()
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(bound ms, bound_by): the larger of the operation time at the card's
+    32-bit multiply rate and the byte time at its memory rate."""
+    t_ops, t_bytes = ops / IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 class Smoke:
     def __init__(self, args):
         import torch
         self.torch = torch
         self.args = args
         self.dev = torch.device("cuda:0")
-        self.kernels = {}
+        self.kernels = {
+            name: dict(name=name, route="cuda", source=src, replaces=rep,
+                       path=path, launches=None, max_abs_err=None, ms=None,
+                       device_ms=None, plain_ms=None, bound_ms=None,
+                       bound_by=None, library_ms=None)
+            for name, (src, rep, path) in KERNELS.items()}
+        self.path_counts = {}          # path -> launch counts of its run
+        self._db = None
+
+    def db(self):
+        if self._db is None:
+            from repro_torch.graphdb import ldbc
+            t0 = time.perf_counter()
+            self._db = ldbc.generate(n_knows=N_FACTS, n_comments=N_FACTS,
+                                     seed=0)
+            log(f"[data] ldbc.generate({N_FACTS} knows, {N_FACTS} comments, "
+                f"{self._db.n_nodes} persons) in "
+                f"{time.perf_counter() - t0:.2f} s")
+        return self._db
+
+    def cfg(self):
+        from repro_torch.core import prover as pv
+        return pv.ProverConfig(blowup=4, n_queries=16, fri_final_size=32)
+
+    def drive(self, path: str, fn):
+        """Run one path with every launch count set to 0 just before it,
+        and keep the counts read just after it."""
+        from repro_torch.core import backend as be
+        be.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.path_counts[path] = be.launch_counts()
+        return out
+
+    def record(self, name: str, fn, ms: float, plain: float, ops: float,
+               nbytes: float):
+        """Keep a kernel's timed numbers: ``ms`` and ``plain`` (CUDA events
+        around one call of the wrapper and of the plain version), the
+        device time of ``fn`` (the wrapper call) and the bound."""
+        b_ms, by = bound(ops, nbytes)
+        dev_ms = device_ms(self.torch, fn, SYMBOLS[name])
+        self.kernels[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=by)
+        log(f"[parity] {name} device time {dev_ms:.5f} ms a call "
+            f"(torch.profiler, L2 evicted); wrapper call {ms:.5f} ms (CUDA "
+            f"events)")
+        log(f"[parity] {name} bound: {ops:.4g} 32-bit multiplies = "
+            f"{ops / IMAD_PER_S * 1e3:.5f} ms; {nbytes:.4g} bytes = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms -> {b_ms:.5f} ms "
+            f"({by})")
 
     # -- 1 ------------------------------------------------------------------
     def phase_build(self):
@@ -145,23 +293,11 @@ class Smoke:
             if e != 0:
                 raise AssertionError(f"poseidon kernel != plain at n={n}")
             if n == TIMED_POSEIDON:
-                ops = n * POSEIDON_MODMULS * IMADS_PER_MODMUL
-                nbytes = 2 * n * 16 * 8
-                bound = max(ops / IMAD_PER_S, nbytes / HBM_BYTES_PER_S)
-                self.kernels["poseidon_permute"] = dict(
-                    name="poseidon_permute", route="cuda",
-                    source="src/repro_torch/kernels/csrc/poseidon.cu",
-                    replaces="src/repro/kernels/poseidon/poseidon.py:41",
-                    launches=None, max_abs_err=None, ms=ms, plain_ms=plain,
-                    bound_ms=bound * 1e3,
-                    bound_by=("operations" if ops / IMAD_PER_S
-                              >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                    library_ms=None)
-                log(f"[parity] poseidon bound at n={n}: {POSEIDON_MODMULS} "
-                    f"modmuls/state x {IMADS_PER_MODMUL} IMAD at "
-                    f"{IMAD_PER_S:.4g}/s = {ops / IMAD_PER_S * 1e3:.5f} ms; "
-                    f"{nbytes} bytes = "
-                    f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+                # POSEIDON_MODMULS modmuls a state, IMADS_PER_MODMUL each
+                self.record("poseidon_permute",
+                            lambda: pos_ops.permute(x), ms, plain,
+                            n * POSEIDON_MODMULS * IMADS_PER_MODMUL,
+                            2 * n * 16 * 8)
         self.kernels["poseidon_permute"]["max_abs_err"] = err
 
         err = 0
@@ -184,35 +320,78 @@ class Smoke:
                 if shape == TIMED_NTT and not inverse:
                     b, n = shape
                     log_n = n.bit_length() - 1
-                    ops = b * (n // 2) * log_n * IMADS_PER_MODMUL
-                    nbytes = 2 * b * n * 8
-                    bound = max(ops / IMAD_PER_S, nbytes / HBM_BYTES_PER_S)
-                    self.kernels["ntt_stage"] = dict(
-                        name="ntt_stage", route="cuda",
-                        source="src/repro_torch/kernels/csrc/ntt.cu",
-                        replaces="src/repro/kernels/ntt/ntt.py:22",
-                        launches=None, max_abs_err=None, ms=ms,
-                        plain_ms=plain, bound_ms=bound * 1e3,
-                        bound_by=("operations" if ops / IMAD_PER_S
-                                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                        library_ms=None)
+                    self.record("ntt_stage",
+                                lambda: ntt_ops.ntt(x, inverse=inverse),
+                                ms, plain,
+                                b * (n // 2) * log_n * IMADS_PER_MODMUL,
+                                2 * b * n * 8)
         self.kernels["ntt_stage"]["max_abs_err"] = err
+        self.parity_running_products(rand)
+        self.parity_field_ops(rand)
+
+    def parity_running_products(self, rand):
+        torch = self.torch
+        from repro_torch.kernels.grand_product import ops, ref
+        for ext, name in ((True, "grand_product_ext"),
+                          (False, "grand_product")):
+            kernel = ops.grand_product_ext if ext else ops.grand_product
+            plain = ref.grand_product_ext_ref if ext else ref.grand_product_ref
+            err = 0
+            for n in GP_SHAPES:
+                x = rand((n, 4) if ext else (n,), n + ext)
+                got, want = kernel(x), plain(x)
+                torch.cuda.synchronize()
+                e = int((got - want).abs().max())
+                err = max(err, e)
+                ms = cuda_ms(torch, lambda: kernel(x))
+                plain_ms = cuda_ms(torch, lambda: plain(x), reps=3)
+                log(f"[parity] {name} n={n}: max_abs_err={e} kernel "
+                    f"{ms:.4f} ms plain {plain_ms:.4f} ms")
+                if e != 0:
+                    raise AssertionError(f"{name} kernel != plain at n={n}")
+                if n == (TIMED_GP_EXT if ext else TIMED_GP):
+                    # n products, each FP4_MODMULS modmuls (1 in the base
+                    # field); (n, 4) or (n,) int64 read once, written once
+                    self.record(name, lambda: kernel(x), ms, plain_ms,
+                                n * (FP4_MODMULS if ext else 1)
+                                * IMADS_PER_MODMUL,
+                                2 * n * (4 if ext else 1) * 8)
+            self.kernels[name]["max_abs_err"] = err
+
+    def parity_field_ops(self, rand):
+        torch = self.torch
+        from repro_torch.kernels.fieldops import ops, ref
+        for name, k in (("mulmod", 2), ("fused_mul_add", 3)):
+            kernel, plain = getattr(ops, name), getattr(ref, name + "_ref")
+            err = 0
+            for shape in FIELD_SHAPES:
+                xs = [rand(shape, sum(shape) + j) for j in range(k)]
+                got, want = kernel(*xs), plain(*xs)
+                torch.cuda.synchronize()
+                e = int((got - want).abs().max())
+                err = max(err, e)
+                ms = cuda_ms(torch, lambda: kernel(*xs))
+                plain_ms = cuda_ms(torch, lambda: plain(*xs), reps=3)
+                log(f"[parity] {name} {shape}: max_abs_err={e} kernel "
+                    f"{ms:.4f} ms plain {plain_ms:.4f} ms")
+                if e != 0 or got.shape != want.shape:
+                    raise AssertionError(f"{name} kernel != plain at {shape}")
+                if shape == TIMED_FIELD:
+                    n = got.numel()
+                    # one modmul an element; k inputs read, one output
+                    self.record(name, lambda: kernel(*xs), ms, plain_ms,
+                                n * IMADS_PER_MODMUL,
+                                (k + 1) * n * 8)
+            self.kernels[name]["max_abs_err"] = err
 
     # -- 3 ------------------------------------------------------------------
     def phase_main(self):
         import numpy as np
         torch = self.torch
         from repro_torch.core import backend as be
-        from repro_torch.core import prover as pv
         from repro_torch.core.session import TrustAnchor, ZKGraphSession
-        from repro_torch.graphdb import ldbc
 
-        t0 = time.perf_counter()
-        db = ldbc.generate(n_knows=N_FACTS, n_comments=N_FACTS, seed=0)
-        log(f"[main] ldbc.generate({N_FACTS} knows, {N_FACTS} comments, "
-            f"{db.n_nodes} persons) in {time.perf_counter() - t0:.2f} s")
-        cfg = pv.ProverConfig(blowup=4, n_queries=16, fri_final_size=32)
-        self.cfg, self.db = cfg, db
+        db, cfg = self.db(), self.cfg()
 
         be.reset_launch_counts()
         t0 = time.perf_counter()
@@ -233,7 +412,7 @@ class Smoke:
         ok = verifier.verify_bytes(raw)
         torch.cuda.synchronize()
         t_verify = time.perf_counter() - t0
-        self.counts = be.launch_counts()
+        self.path_counts["main"] = counts = be.launch_counts()
         if not ok:
             raise AssertionError("the verifier rejected an honest IS5 bundle")
         root = np.asarray(bundle.steps[0].proof.data_root, "<u4").tobytes()
@@ -253,13 +432,13 @@ class Smoke:
         if not np.array_equal(got, want):
             raise AssertionError(f"IS5 result {got} != engine's {want}")
         log(f"[main] result creator={got.tolist()} matches the engine")
-        for name in self.counts:
+        for name in ("poseidon_permute", "ntt_stage"):
             log(f"[main] launches {name}: publish {after_pub[name]}, prove "
                 f"{after_prove[name] - after_pub[name]}, verify "
-                f"{self.counts[name] - after_prove[name]}")
+                f"{counts[name] - after_prove[name]}")
         self.main = dict(publish_s=t_pub, prove_s=t_prove, verify_s=t_verify,
                          bundle_bytes=len(raw))
-        self.manifest, self.bundle = manifest, bundle
+        self.owner, self.manifest, self.bundle = owner, manifest, bundle
         if self.args.trace:
             self.trace(owner)
 
@@ -301,11 +480,11 @@ class Smoke:
                 step.proof.timings = {}
             return b.to_bytes()
 
-        cfg_t = dataclasses.replace(self.cfg, backend="torch",
+        cfg_t = dataclasses.replace(self.cfg(), backend="torch",
                                     device=str(self.dev))
         before = be.launch_counts()
         t0 = time.perf_counter()
-        plain = ZKGraphSession(self.db, cfg_t)
+        plain = ZKGraphSession(self.db(), cfg_t)
         manifest_t = plain.publish()
         t_pub = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -324,17 +503,212 @@ class Smoke:
             f"{t_plain:.3f} s, canonical bundle bytes equal")
 
     # -- 5 ------------------------------------------------------------------
+    def gp_witness(self, perm_seed=None):
+        """(circuit, advice) of the Eq. (2) permutation check on hasCreator:
+        advice a1, a2 are the table's (comment, person) pairs in table order,
+        b1, b2 the same pairs sorted by person (``perm_seed`` None) or under
+        ``np.random.default_rng(perm_seed)``'s permutation; rows past the
+        table are zero in all four columns."""
+        import numpy as np
+        from repro_torch.core import field as F
+        from repro_torch.core.plonkish import Circuit
+        t = self.db().tables["comment_hasCreator_person"]
+        c = Circuit(GP_ROWS, name="hasCreator_perm")
+        a1, a2 = c.add_advice("a1"), c.add_advice("a2")
+        b1, b2 = c.add_advice("b1"), c.add_advice("b2")
+        c.add_grand_product("perm", [a1, a2], [b1, b2])
+        pairs = np.zeros((GP_ROWS, 2), np.int64)
+        pairs[:len(t.src), 0], pairs[:len(t.src), 1] = t.src, t.dst
+        if perm_seed is None:
+            perm = np.argsort(pairs[:len(t.src), 1], kind="stable")
+            perm = np.concatenate([perm, np.arange(len(t.src), GP_ROWS)])
+        else:
+            perm = np.random.default_rng(perm_seed).permutation(GP_ROWS)
+        advice = np.zeros((c.n_advice, GP_ROWS), np.uint32)
+        advice[0], advice[1] = pairs[:, 0] % F.P, pairs[:, 1] % F.P
+        advice[2], advice[3] = advice[0][perm], advice[1][perm]
+        return c, advice
+
+    def phase_gp(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import backend as be
+        from repro_torch.core import field as F
+        from repro_torch.core import prover as pv
+        from repro_torch.core import verifier as vf
+        cfg = self.cfg()
+        inst = np.zeros((0, GP_ROWS), np.uint32)
+        walls = {}
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            return out
+
+        def run():
+            circuit, advice = self.gp_witness()
+            keys = timed("keygen", lambda: pv.keygen(circuit, cfg))
+            proof = timed("prove", lambda: pv.prove(keys, advice.copy(),
+                                                    inst))
+            v_keys = timed("verifier keygen", lambda: pv.keygen(
+                self.gp_witness()[0], cfg))
+            ok = timed("verify", lambda: vf.verify(v_keys, inst, proof))
+            return keys, advice, v_keys, proof, ok
+
+        keys, advice, v_keys, proof, ok = self.drive("gp", run)
+        if not ok:
+            raise AssertionError("the verifier rejected an honest gp proof")
+        raw = proof.to_bytes()
+        n_pairs = self.db().tables["comment_hasCreator_person"].src.size
+        log(f"[gp] hasCreator ({n_pairs} pairs) against itself sorted by "
+            f"person, "
+            f"{GP_ROWS} rows, LDE {GP_ROWS * cfg.blowup}: " +
+            ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()) +
+            f"; proof {len(raw)} bytes; grand_product_ext launches "
+            f"{self.path_counts['gp']['grand_product_ext']}")
+        bad = advice.copy()
+        bad[2, 5] = (int(bad[2, 5]) + 1) % F.P
+        if vf.verify(v_keys, inst, pv.prove(keys, bad, inst)):
+            raise AssertionError("the verifier accepted a tampered gp "
+                                 "witness")
+        log("[gp] a witness with one b1 cell changed: proof rejected")
+        cfg_t = dataclasses.replace(cfg, backend="torch",
+                                    device=str(self.dev))
+        before = be.launch_counts()
+        t0 = time.perf_counter()
+        keys_t = pv.keygen(self.gp_witness()[0], cfg_t)
+        proof_t = pv.prove(keys_t, advice.copy(), inst)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        if be.launch_counts() != before:
+            raise AssertionError("the torch backend launched a kernel")
+        if canonical_proof(proof_t) != canonical_proof(proof):
+            raise AssertionError("cuda and torch backends gave different gp "
+                                 "proof bytes")
+        log(f"[gp] torch backend on the card: keygen + prove "
+            f"{t_plain:.3f} s, no kernel launched, proof bytes equal")
+        self.gp = dict(walls, proof_bytes=len(raw), keys=keys)
+
+    # -- 6 ------------------------------------------------------------------
+    def phase_batch(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import prover as pv
+        from repro_torch.core import prover_batch as pvb
+        from repro_torch.core import verifier as vf
+        from repro_torch.core.session import ZKGraphSession
+        cfg = self.cfg()
+        keys = self.gp["keys"] if hasattr(self, "gp") else \
+            pv.keygen(self.gp_witness()[0], cfg)
+        inst = np.zeros((0, GP_ROWS), np.uint32)
+        lanes = [self.gp_witness(k)[1] for k in range(GP_LANES)]
+        owner = self.owner if hasattr(self, "owner") else \
+            ZKGraphSession(self.db(), cfg)
+        runs = [owner.run_query("IS5", dict(message=m))
+                for m in (MESSAGE, MESSAGE + 6)]
+        steps = [st for run in runs for st in run.steps]
+        key0 = owner.step_shape_key(steps[0])
+        if any(owner.step_shape_key(st) != key0 for st in steps[1:]):
+            raise AssertionError("the IS5 steps differ in shape")
+        walls = {}
+
+        def run():
+            t0 = time.perf_counter()
+            proofs = pvb.prove_batch(keys, [(a.copy(), inst, None)
+                                            for a in lanes])
+            torch.cuda.synchronize()
+            walls["prove_batch"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step_proofs = owner.prove_steps(steps)
+            torch.cuda.synchronize()
+            walls["prove_steps"] = time.perf_counter() - t0
+            return proofs, step_proofs
+
+        proofs, step_proofs = self.drive("batch", run)
+        t0 = time.perf_counter()
+        solos = [pv.prove(keys, a.copy(), inst) for a in lanes]
+        torch.cuda.synchronize()
+        t_solo = time.perf_counter() - t0
+        for k, (pf, solo) in enumerate(zip(proofs, solos, strict=True)):
+            if canonical_proof(pf) != canonical_proof(solo):
+                raise AssertionError(f"gp lane {k} differs from its solo "
+                                     f"proof")
+            if not vf.verify(keys, inst, pf):
+                raise AssertionError(f"gp lane {k} does not verify")
+        log(f"[batch] prove_batch of {GP_LANES} gp lanes ({GP_ROWS} rows, "
+            f"permutations from default_rng(0..{GP_LANES - 1})): "
+            f"{walls['prove_batch']:.3f} s against {t_solo:.3f} s for "
+            f"{GP_LANES} solo proves; each lane equals its solo proof and "
+            f"verifies; grand_product_ext launches "
+            f"{self.path_counts['batch']['grand_product_ext']}")
+        t0 = time.perf_counter()
+        for k, (st, sp) in enumerate(zip(steps, step_proofs, strict=True)):
+            solo = owner.prove_step(st)
+            if canonical_proof(sp.proof) != canonical_proof(solo.proof):
+                raise AssertionError(f"IS5 step lane {k} differs from "
+                                     f"prove_step")
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        log(f"[batch] prove_steps of {len(steps)} IS5 steps (messages "
+            f"{MESSAGE}, {MESSAGE + 6}): {walls['prove_steps']:.3f} s; each "
+            f"equals its prove_step ({len(steps)} solo {t_steps:.3f} s)")
+        self.batch = dict(walls, solo_s=t_solo, steps_solo_s=t_steps)
+
+    # -- 7 ------------------------------------------------------------------
+    def phase_kernel_api(self):
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core import field as F
+        from repro_torch.kernels.fieldops import ops as f_ops, ref as f_ref
+        from repro_torch.kernels.grand_product import ops as gp_ops
+        n = TIMED_GP
+        rng = np.random.default_rng(n)
+        vals = torch.from_numpy(rng.integers(1, F.P, size=n - 1)).to(self.dev)
+        one = torch.ones(1, dtype=F.I64, device=self.dev)
+        # Eq. (2) telescoping: ratios v[i] / v[i-1] of a cyclic sequence
+        ratio = F.fmul(torch.cat([vals, one]), F.finv(torch.cat([one, vals])))
+        xs = [torch.from_numpy(rng.integers(0, F.P, size=TIMED_FIELD))
+              .to(self.dev) for _ in range(3)]
+
+        def run():
+            return (gp_ops.grand_product(ratio), f_ops.mulmod(*xs[:2]),
+                    f_ops.fused_mul_add(*xs))
+
+        z, prod, fma = self.drive("kernel_api", run)
+        total = int(z[-1]) * int(ratio[-1]) % F.P
+        if total != 1:
+            raise AssertionError(f"telescoping product {total} != 1")
+        if not torch.equal(prod, f_ref.mulmod_ref(*xs[:2])):
+            raise AssertionError("mulmod != its plain version")
+        if not torch.equal(fma, f_ref.fused_mul_add_ref(*xs)):
+            raise AssertionError("fused_mul_add != its plain version")
+        log(f"[kernel_api] grand_product of {n} telescoping ratios "
+            f"multiplies back to 1; mulmod and fused_mul_add at "
+            f"{TIMED_FIELD} equal their plain versions")
+
+    # -- 8 ------------------------------------------------------------------
     def phase_launches(self):
-        for name, n in self.counts.items():
-            log(f"[launches] {name}: {n} during the main path")
-            if n <= 0:
-                raise AssertionError(f"kernel {name} never launched")
-            self.kernels[name]["launches"] = n
+        for name, info in self.kernels.items():
+            paths = [info["path"]] + [p for p, ks in ALSO_ON.items()
+                                      if name in ks]
+            for path in paths:
+                if path not in self.path_counts:
+                    raise AssertionError(f"path {path} of kernel {name} did "
+                                         f"not run")
+                n = self.path_counts[path][name]
+                log(f"[launches] {name}: {n} during the {path} path")
+                if n <= 0:
+                    raise AssertionError(f"kernel {name} never launched on "
+                                         f"the {path} path")
+            info["launches"] = self.path_counts[info["path"]][name]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="build,parity,main,backends,launches",
+    ap.add_argument("--only", default="build,parity,main,backends,gp,batch,"
+                    "kernel_api,launches",
                     help="comma-separated phases to run")
     ap.add_argument("--trace", default=None,
                     help="directory for a torch.profiler trace of one prove")
@@ -367,8 +741,7 @@ def main() -> int:
         log(f"[{name}] ok ({time.perf_counter() - t0:.2f} s)")
     log(f"[done] {len(phases)} phases in {time.perf_counter() - t_all:.2f} s")
     print(card_line())
-    if set(smoke.kernels) == {"poseidon_permute", "ntt_stage"}:
-        print(json.dumps({"kernels": list(smoke.kernels.values())}))
+    print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

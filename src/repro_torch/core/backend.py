@@ -5,7 +5,7 @@ compute the same field elements bit for bit:
 
 ``cuda``
     The hand-written CUDA kernels under ``repro_torch.kernels`` (Poseidon
-    permutation, NTT).  The default.
+    permutation, NTT, Fp4 running product).  The default.
 ``torch``
     The plain PyTorch versions of the same functions, on any device; on the
     card it is the reference the kernels are held against.
@@ -54,6 +54,7 @@ class ComputeBackend:
     description: str
     permute: Callable          # (..., 16) int64 -> (..., 16)
     ntt: Callable              # (..., n), inverse=False -> (..., n)
+    grand_product_ext: Callable  # (n, 4) -> (n, 4) exclusive Fp4 products
 
 
 def _cuda_permute(states):
@@ -66,6 +67,11 @@ def _cuda_ntt(x, inverse: bool = False):
     return ops.ntt(x, inverse=inverse)
 
 
+def _cuda_grand_product_ext(x):
+    from ..kernels.grand_product import ops
+    return ops.grand_product_ext(x)
+
+
 def _torch_permute(states):
     from ..kernels.poseidon import ref
     return ref.permute_ref(states)
@@ -76,11 +82,17 @@ def _torch_ntt(x, inverse: bool = False):
     return ref.ntt_ref(x, inverse=inverse)
 
 
+def _torch_grand_product_ext(x):
+    from ..kernels.grand_product import ref
+    return ref.grand_product_ext_ref(x)
+
+
 _REGISTRY = {
     "cuda": ComputeBackend("cuda", "hand-written CUDA kernels (sm_90a)",
-                           _cuda_permute, _cuda_ntt),
+                           _cuda_permute, _cuda_ntt, _cuda_grand_product_ext),
     "torch": ComputeBackend("torch", "plain PyTorch versions, any device",
-                            _torch_permute, _torch_ntt),
+                            _torch_permute, _torch_ntt,
+                            _torch_grand_product_ext),
 }
 
 _TLS = threading.local()
@@ -151,7 +163,10 @@ def use(name: str = None, device=None):
 # ---------------------------------------------------------------------------
 # kernel launch counts (incremented by each kernel wrapper where it launches)
 # ---------------------------------------------------------------------------
-_LAUNCHES = {"poseidon_permute": 0, "ntt_stage": 0}
+# the base-field grand product and the field ops are not dispatched (as in
+# repro): they launch only through their own entry points
+_LAUNCHES = {"poseidon_permute": 0, "ntt_stage": 0, "grand_product_ext": 0,
+             "grand_product": 0, "mulmod": 0, "fused_mul_add": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -200,13 +200,16 @@ ebatch_inv = einv
 
 
 def epowers(z, n: int) -> torch.Tensor:
-    """(n, 4) table [z^0, ..., z^(n-1)] of an Fp4 element, by doubling."""
-    out = ext_one((max(n, 1),), z.device)
+    """(..., n, 4) tables [z^0, ..., z^(n-1)] of Fp4 elements z (..., 4),
+    by doubling."""
+    batch = tuple(z.shape[:-1])
+    out = ext_one(batch + (max(n, 1),), z.device)
     k = 1
     step = z
     while k < n:
         m = min(k, n - k)
-        out[k:k + m] = emul(out[:m], step.expand(m, 4))
+        out[..., k:k + m, :] = emul(out[..., :m, :],
+                                    step[..., None, :].expand(batch + (m, 4)))
         step = emul(step, step)
         k *= 2
-    return out[:n]
+    return out[..., :n, :]

@@ -8,6 +8,7 @@ so the fold pairs are (i, i + N/2):  -x_i = x_{i+N/2}.
 
 Each committed layer stores leaf i = concat(f[i], f[i + N/2]) (8 lanes).
 Codewords stay on the device; the proof's fields are host numpy arrays.
+:func:`fri_prove_lanes` proves L same-length codewords in lockstep.
 """
 from __future__ import annotations
 
@@ -109,6 +110,61 @@ def fri_prove(codeword: torch.Tensor, tx: Transcript, cfg: FriConfig) -> FriProo
         rows, paths = merkle.open_at(tree, idx)
         openings.append((F.to_numpy(rows), F.to_numpy(paths)))
     return FriProof(roots, final_codeword, q_idx, openings)
+
+
+# ---------------------------------------------------------------------------
+# lane-batched proving (prover_batch): L same-length codewords fold, commit
+# and open in lockstep with per-lane challenges.  Lane l's FriProof equals
+# ``fri_prove(codewords[l], solo_tx, cfg)`` when the transcripts agree:
+# every op is the solo op with a leading lane dim.
+# ---------------------------------------------------------------------------
+def _fold_lanes(codewords: torch.Tensor, beta: torch.Tensor,
+                shift: int) -> torch.Tensor:
+    """One fold of (L, N, 4) codewords with per-lane betas (L, 4)."""
+    half = codewords.shape[1] // 2
+    lo, hi = codewords[:, :half], codewords[:, half:]
+    inv_pts = _inv_points(codewords.shape[1], shift, codewords.device)
+    even = F.emul_fp(F.eadd(lo, hi), _INV2)
+    odd = F.emul_fp(F.esub(lo, hi), F.fmul(inv_pts, _INV2))
+    return F.eadd(even, F.emul(beta[:, None, :].expand(odd.shape), odd))
+
+
+def fri_prove_lanes(codewords: torch.Tensor, btx, cfg: FriConfig) -> list:
+    """codewords: (L, N, 4) on cfg.shift * H_N; ``btx`` a
+    :class:`~repro_torch.core.transcript.BatchedTranscript` of L lanes.
+    Returns one :class:`FriProof` per lane."""
+    lanes, n = codewords.shape[0], codewords.shape[1]
+    dev = codewords.device
+    trees = []
+    roots = []                 # per committed layer: (L, 8) np
+    words = []
+    shift = cfg.shift
+    cur = codewords
+    while cur.shape[1] > cfg.final_size:
+        half = cur.shape[1] // 2
+        tree = merkle.commit_lanes(torch.cat([cur[:, :half], cur[:, half:]],
+                                             dim=-1))
+        trees.append(tree)
+        words.append(cur)
+        roots.append(F.to_numpy(tree.roots))
+        btx.absorb_digest(tree.roots)
+        beta = F.tensor(btx.challenge_ext(), dev)       # (L, 4)
+        cur = _fold_lanes(cur, beta, shift)
+        shift = shift * shift % F.P
+    final_codewords = F.to_numpy(cur)                   # (L, final, 4)
+    btx.absorb(cur.reshape(lanes, -1))
+
+    q_idx = btx.challenge_indices(cfg.n_queries, n // 2)   # (L, q)
+    openings = []              # per layer: (rows (L,q,8), paths (L,q,d,8))
+    idx = torch.from_numpy(q_idx).to(dev)
+    for tree, word in zip(trees, words):
+        idx = idx % (word.shape[1] // 2)
+        rows, paths = merkle.open_lanes(tree, idx)
+        openings.append((F.to_numpy(rows), F.to_numpy(paths)))
+    return [
+        FriProof([r[l] for r in roots], final_codewords[l], q_idx[l],
+                 [(rows[l], paths[l]) for rows, paths in openings])
+        for l in range(lanes)]
 
 
 def fri_verify(proof: FriProof, tx: Transcript, cfg: FriConfig, n: int):

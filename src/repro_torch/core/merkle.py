@@ -3,7 +3,8 @@
 PyTorch counterpart of ``repro.core.merkle``: leaf i hashes row i, internal
 nodes use 2-to-1 compression, and every layer stays on the device as one
 tensor.  Each level is one batched permutation (the kernel under the
-``cuda`` backend).
+``cuda`` backend); the lane-batched trees (:func:`commit_lanes`) hash the
+level of every lane in that same one launch.
 """
 from __future__ import annotations
 
@@ -49,6 +50,50 @@ def open_at(tree: MerkleTree, indices: torch.Tensor):
         idx = idx // 2
     path = torch.stack(sibs, dim=1) if sibs else \
         rows.new_zeros((len(indices), 0, 8))
+    return rows, path
+
+
+# ---------------------------------------------------------------------------
+# lane-batched trees (prover_batch): L same-shaped commitments in one pass.
+# ``hash_rows``/``compress`` take leading batch dims and every hash is
+# row-independent, so lane l of the batched tree equals ``commit(rows[l])``.
+# ---------------------------------------------------------------------------
+@dataclass
+class BatchedMerkleTree:
+    leaves: torch.Tensor         # (L, n, width) committed rows
+    layers: list                 # [(L,n,8), (L,n/2,8), ..., (L,1,8)]
+
+    @property
+    def roots(self) -> torch.Tensor:
+        return self.layers[-1][:, 0]                    # (L, 8)
+
+
+def commit_lanes(rows: torch.Tensor) -> BatchedMerkleTree:
+    """rows: (L, n, width) with n a power of two: L trees in lockstep."""
+    n = rows.shape[1]
+    assert n & (n - 1) == 0, "leaf count must be a power of two"
+    layer = H.hash_rows(rows)                           # (L, n, 8)
+    layers = [layer]
+    while layer.shape[1] > 1:
+        layer = H.compress(layer[:, 0::2], layer[:, 1::2])
+        layers.append(layer)
+    return BatchedMerkleTree(leaves=rows, layers=layers)
+
+
+def open_lanes(tree: BatchedMerkleTree, indices: torch.Tensor):
+    """Open per-lane leaves at ``indices`` (L, k).  Returns (rows (L,k,width),
+    path (L,k,d,8)); lane l equals ``open_at(tree_l, indices[l])``."""
+    def take(t, idx):
+        return torch.gather(t, 1, idx[:, :, None].expand(-1, -1, t.shape[2]))
+
+    idx = indices
+    rows = take(tree.leaves, idx)
+    sibs = []
+    for layer in tree.layers[:-1]:
+        sibs.append(take(layer, idx ^ 1))
+        idx = idx // 2
+    path = torch.stack(sibs, dim=2) if sibs else \
+        rows.new_zeros(tuple(idx.shape) + (0, 8))
     return rows, path
 
 

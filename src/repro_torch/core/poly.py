@@ -119,10 +119,14 @@ def coset_coeffs(evals: torch.Tensor, shift: int) -> torch.Tensor:
 def eval_at_ext(coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Evaluate Fp-coefficient polynomials at an Fp4 point ``z``.
 
-    coeffs: (..., n) Fp; z: (4,) Fp4. Returns (..., 4) = sum_i c_i z^i,
-    from a table of powers of z and one modular dot product."""
+    coeffs: (..., n) Fp; z: (4,) Fp4, or (L, 4) with coeffs (L, ..., n),
+    one point per leading index (the lane-batched prover's OOD points).
+    Returns (..., 4) = sum_i c_i z^i, from a table of powers of z and one
+    modular dot product."""
     n = coeffs.shape[-1]
-    zpows = F.epowers(z, n)                               # (n, 4)
+    zpows = F.epowers(z, n)                               # (L?, n, 4)
+    zpows = zpows.reshape(tuple(z.shape[:-1])
+                          + (1,) * (coeffs.ndim - z.ndim) + (n, 4))
     prod = coeffs[..., None] * zpows % F.P                # (..., n, 4)
     return prod.sum(dim=-2) % F.P                         # n * P < 2^63
 

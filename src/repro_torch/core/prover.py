@@ -3,8 +3,9 @@
 PyTorch counterpart of ``repro.core.prover``.  Pipeline (paper §III-B):
   witness finalize -> commit phase-1 advice -> draw alpha, beta (Eq. (1)
   tuple compression + bus denominators) -> build phase-2 ext columns (logUp
-  running sums) -> commit -> combine constraints -> quotient -> OOD
-  openings at z -> DEEP composition -> FRI -> query openings.
+  running sums / Eq. (2) running products) -> commit -> combine constraints
+  -> quotient -> OOD openings at z -> DEEP composition -> FRI -> query
+  openings.
 
 Witnesses arrive as host numpy arrays; every column, LDE, tree and
 codeword of the proof lives on the device the keys were made for, and the
@@ -12,7 +13,6 @@ codeword of the proof lives on the device the keys were made for, and the
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -21,11 +21,9 @@ import torch
 from . import backend as be
 from . import field as F
 from . import fri as fri_mod
-from . import merkle
 from . import poly
 from .plonkish import (ADVICE, DATA, FIXED, INSTANCE, BaseOps, Circuit,
                        eval_expr)
-from .transcript import Transcript
 
 
 @dataclass(frozen=True)
@@ -89,8 +87,10 @@ class Proof:
 # helpers
 # ---------------------------------------------------------------------------
 def _lde(cols: torch.Tensor, blowup: int, shift: int) -> torch.Tensor:
-    if cols.shape[0] == 0:
-        return cols.new_zeros((0, cols.shape[1] * blowup))
+    """(..., c, n) evaluations -> (..., c, n*blowup) coset LDE (c may be 0)."""
+    if cols.shape[-2] == 0:
+        return cols.new_zeros(tuple(cols.shape[:-1])
+                              + (cols.shape[-1] * blowup,))
     return poly.coset_lde(cols, blowup, shift)
 
 
@@ -103,14 +103,6 @@ def _lde_from_coeffs(coeffs: torch.Tensor, blowup: int, shift: int) -> torch.Ten
 def _cumsum_mod(x: torch.Tensor, axis=0) -> torch.Tensor:
     # n * P < 2^63 for every circuit size the field allows
     return torch.cumsum(x, dim=axis) % F.P
-
-
-def _no_grand_products(circuit: Circuit):
-    if circuit.gps:
-        raise NotImplementedError(
-            f"circuit {circuit.name!r} uses a grand-product argument "
-            f"({[g.name for g in circuit.gps]}); repro_torch has not ported "
-            f"it yet (ROADMAP Queue 2: the Fp4 grand-product kernel)")
 
 
 def opening_schedule(circuit: Circuit, blowup: int):
@@ -180,8 +172,11 @@ def auto_multiplicities(circuit: Circuit, data_np: np.ndarray,
 # ---------------------------------------------------------------------------
 def keygen(circuit: Circuit, cfg: ProverConfig = ProverConfig()) -> Keys:
     with be.use(cfg.backend, cfg.device) as (backend, device):
-        _no_grand_products(circuit)
         circuit.assign_ext_cols()
+        if circuit.gps and "__row0" not in circuit.fixed_names:
+            onehot = np.zeros(circuit.n_rows, np.uint32)
+            onehot[0] = 1
+            circuit.add_fixed("__row0", onehot)
         fixed = F.tensor(np.stack(circuit.fixed_cols) if circuit.fixed_cols
                          else np.zeros((0, circuit.n_rows), np.int64), device)
         coeffs = poly.intt(fixed) if circuit.n_fixed else fixed
@@ -189,13 +184,20 @@ def keygen(circuit: Circuit, cfg: ProverConfig = ProverConfig()) -> Keys:
         return Keys(circuit, cfg, coeffs, lde, backend.name, device)
 
 
+def _row0_index(circuit: Circuit) -> int:
+    """Fixed-column index of the ``__row0`` one-hot (keygen adds it to
+    every circuit with a grand product)."""
+    return circuit.fixed_names.index("__row0")
+
+
 # ---------------------------------------------------------------------------
 # phase-2 ext column construction
 # ---------------------------------------------------------------------------
 def build_ext_columns(circuit: Circuit, getter_n, like_n, alpha, beta):
-    """Returns (n_ext, N, 4) ext columns: the bus running sums."""
+    """Returns (..., n_ext, N, 4) ext columns: bus running sums then GP
+    products.  Columns are (N,), or (L, N) for the lane-batched prover with
+    (L, 1, 4) challenges; every op is elementwise over the leading axes."""
     from .plonkish import compress_tuple
-    _no_grand_products(circuit)
     n = circuit.n_rows
     cols = []
     for bus in circuit.buses:
@@ -203,32 +205,53 @@ def build_ext_columns(circuit: Circuit, getter_n, like_n, alpha, beta):
         t_vals = [eval_expr(e, getter_n, BaseOps, like_n) for e in bus.t_tuple]
         m_f = eval_expr(bus.m_f, getter_n, BaseOps, like_n)
         m_t = eval_expr(bus.m_t * bus.t_sel, getter_n, BaseOps, like_n)
-        d_f = F.eadd(beta.expand(n, 4), compress_tuple(f_vals, alpha))
-        d_t = F.eadd(beta.expand(n, 4), compress_tuple(t_vals, alpha))
+        d_f = F.eadd(beta, compress_tuple(f_vals, alpha))
+        d_t = F.eadd(beta, compress_tuple(t_vals, alpha))
         # m_f/d_f - m_t/d_t = (m_f*d_t - m_t*d_f) / (d_f*d_t)
-        num = F.esub(F.fmul(d_t, m_f[:, None]), F.fmul(d_f, m_t[:, None]))
+        num = F.esub(F.fmul(d_t, m_f[..., None]), F.fmul(d_f, m_t[..., None]))
         inc = F.emul(num, F.ebatch_inv(F.emul(d_f, d_t)))
-        h = _cumsum_mod(inc, axis=0)
-        h = torch.cat([h.new_zeros((1, 4)), h[:-1]], dim=0)
-        cols.append(h)
+        h = _cumsum_mod(inc, axis=-2)
+        cols.append(torch.cat([torch.zeros_like(h[..., :1, :]),
+                               h[..., :-1, :]], dim=-2))
+    for gp in circuit.gps:
+        c1 = [eval_expr(e, getter_n, BaseOps, like_n) for e in gp.c1_tuple]
+        c2 = [eval_expr(e, getter_n, BaseOps, like_n) for e in gp.c2_tuple]
+        s1 = eval_expr(gp.sel1, getter_n, BaseOps, like_n)
+        s2 = eval_expr(gp.sel2, getter_n, BaseOps, like_n)
+        one = F.ext_one(like_n.shape, like_n.device)
+        d1 = F.eadd(beta, compress_tuple(c1, alpha))
+        d2 = F.eadd(beta, compress_tuple(c2, alpha))
+        f1 = F.eadd(F.fmul(d1, s1[..., None]),
+                    F.fmul(one, F.fsub(torch.ones_like(s1), s1)[..., None]))
+        f2 = F.eadd(F.fmul(d2, s2[..., None]),
+                    F.fmul(one, F.fsub(torch.ones_like(s2), s2)[..., None]))
+        ratio = F.emul(f1, F.ebatch_inv(f2))
+        # Eq. (2) exclusive running product: Z[0]=1, Z[i]=prod_{j<i} —
+        # dispatched (cuda: the running-product kernel; torch: plain), one
+        # (N, 4) call per lane
+        gpe = be.active().grand_product_ext
+        cols.append(torch.stack([gpe(r) for r in ratio.reshape(-1, n, 4)])
+                    .reshape(ratio.shape))
     if not cols:
-        return like_n.new_zeros((0, n, 4))
-    return torch.stack(cols)
+        return like_n.new_zeros(tuple(like_n.shape[:-1]) + (0, n, 4))
+    return torch.stack(cols, dim=-3)
 
 
 # ---------------------------------------------------------------------------
 # constraint evaluation (shared shape between LDE-domain and OOD-point)
 # ---------------------------------------------------------------------------
 def combine_constraints(circuit: Circuit, base_getter, ext_getter, alpha, beta,
-                        alpha_c, like_base, ops, ext_of_base):
+                        alpha_c, like_base, ops, ext_of_base, row0_val):
     """Evaluate sum_i alpha_c^i * constraint_i.
 
+    Challenges broadcast against the values: (4,) for one proof, (L, 1, 4)
+    against the lane-batched prover's (L, N, 4) values.
     ``base_getter``: base-column access returning ops-domain values.
     ``ext_getter(col, rot)``: ext helper column value (always Fp4-shaped).
     ``ext_of_base(v)``: lift a base-domain value into the ext accumulator space.
+    ``row0_val``: evaluation of the __row0 one-hot fixed column (or None).
     Returns the combined accumulator (ext space).
     """
-    _no_grand_products(circuit)
     acc = None
     a_pow = None
 
@@ -269,6 +292,22 @@ def combine_constraints(circuit: Circuit, base_getter, ext_getter, alpha, beta,
         term = F.esub(term, mul_base(d_t, m_f))
         term = F.eadd(term, mul_base(d_f, m_t))
         add_term(term)
+    for gp in circuit.gps:
+        c1 = compress(gp.c1_tuple)
+        d1 = F.eadd(beta.expand(c1.shape), c1)
+        d2 = F.eadd(beta.expand(d1.shape), compress(gp.c2_tuple))
+        s1 = eval_expr(gp.sel1, base_getter, ops, like_base)
+        s2 = eval_expr(gp.sel2, base_getter, ops, like_base)
+        one_b = ops.const(1, like_base)
+        f1 = F.eadd(mul_base(d1, s1), ext_of_base(ops.sub(one_b, s1)))
+        f2 = F.eadd(mul_base(d2, s2), ext_of_base(ops.sub(one_b, s2)))
+        z = ext_getter(gp.ext_col, 0)
+        z1 = ext_getter(gp.ext_col, 1)
+        add_term(F.esub(F.emul(z1, f2), F.emul(z, f1)))
+        # boundary Z[row0] = 1
+        one_e = torch.zeros_like(z)
+        one_e[..., 0] = 1
+        add_term(F.emul(ext_of_base(row0_val), F.esub(z, one_e)))
     if acc is None:
         acc = torch.zeros_like(ext_of_base(ops.const(0, like_base)))
     return acc
@@ -280,182 +319,10 @@ def combine_constraints(circuit: Circuit, base_getter, ext_getter, alpha, beta,
 def prove(keys: Keys, advice_np: np.ndarray, instance_np: np.ndarray,
           data_np: np.ndarray = None, label: str = "zkgraph") -> Proof:
     """Prove under the backend and device that produced these Keys.  Proof
-    bytes are bit-identical across backends."""
-    with be.use(keys.backend, keys.device):
-        return _prove_impl(keys, advice_np, instance_np, data_np, label)
+    bytes are bit-identical across backends.
 
-
-def _prove_impl(keys: Keys, advice_np: np.ndarray, instance_np: np.ndarray,
-                data_np: np.ndarray = None, label: str = "zkgraph") -> Proof:
-    circuit, cfg = keys.circuit, keys.cfg
-    dev = keys.device
-    n, B = circuit.n_rows, cfg.blowup
-    nl = n * B
-    t0 = time.perf_counter()
-    timings = {}
-
-    if data_np is None:
-        data_np = np.zeros((0, n), np.uint32)
-    auto_multiplicities(circuit, data_np, advice_np, instance_np)
-    advice = F.tensor(advice_np, dev)
-    data = F.tensor(data_np, dev) if circuit.n_data \
-        else torch.zeros((0, n), dtype=F.I64, device=dev)
-    inst = F.tensor(instance_np, dev) if circuit.n_instance \
-        else torch.zeros((0, n), dtype=F.I64, device=dev)
-
-    tx = Transcript(label, dev)
-    tx.absorb(circuit.digest_seed())
-    if circuit.n_instance:
-        # bind public I/O by a Merkle root (one digest, not O(N) sponge blocks)
-        tx.absorb_digest(merkle.commit(inst.T).root)
-
-    zero_root = np.zeros(8, np.uint32)
-
-    # --- phase 0: commit the dataset (the declared-DB binding) --------------
-    data_coeffs = poly.intt(data) if circuit.n_data else data
-    data_lde = _lde(data, B, cfg.shift)
-    data_tree = merkle.commit(data_lde.T) if circuit.n_data else None
-    data_root = F.to_numpy(data_tree.root) if data_tree else zero_root
-    tx.absorb_digest(data_root)
-
-    # --- phase 1: commit advice -------------------------------------------
-    adv_coeffs = poly.intt(advice) if circuit.n_advice else advice
-    adv_lde = _lde(advice, B, cfg.shift)
-    adv_tree = merkle.commit(adv_lde.T) if circuit.n_advice else None
-    adv_root = F.to_numpy(adv_tree.root) if adv_tree else zero_root
-    tx.absorb_digest(adv_root)
-    timings["commit_advice"] = time.perf_counter() - t0
-
-    alpha = F.tensor(tx.challenge_ext(), dev)
-    beta = F.tensor(tx.challenge_ext(), dev)
-
-    # --- phase 2: ext columns ----------------------------------------------
-    t1 = time.perf_counter()
-    fixed_n = F.tensor(np.stack(circuit.fixed_cols) if circuit.fixed_cols
-                       else np.zeros((0, n), np.int64), dev)
-
-    def getter_n(kind, idx, rot):
-        src = {FIXED: fixed_n, ADVICE: advice, INSTANCE: inst, DATA: data}[kind]
-        return torch.roll(src[idx], -rot)
-
-    like_n = torch.zeros(n, dtype=F.I64, device=dev)
-    ext_cols = build_ext_columns(circuit, getter_n, like_n, alpha, beta)
-    n_ext = circuit.n_ext
-    ext_base = ext_cols.permute(0, 2, 1).reshape(n_ext * 4, n) if n_ext \
-        else torch.zeros((0, n), dtype=F.I64, device=dev)
-    ext_coeffs = poly.intt(ext_base) if n_ext else ext_base
-    ext_lde = _lde(ext_base, B, cfg.shift)
-    ext_tree = merkle.commit(ext_lde.T) if n_ext else None
-    ext_root = F.to_numpy(ext_tree.root) if ext_tree else zero_root
-    tx.absorb_digest(ext_root)
-    timings["phase2_ext"] = time.perf_counter() - t1
-
-    alpha_c = F.tensor(tx.challenge_ext(), dev)
-
-    # --- quotient -----------------------------------------------------------
-    t2 = time.perf_counter()
-    fixed_lde, inst_lde = keys.fixed_lde, _lde(inst, B, cfg.shift)
-
-    def getter_lde(kind, idx, rot):
-        src = {FIXED: fixed_lde, ADVICE: adv_lde, INSTANCE: inst_lde,
-               DATA: data_lde}[kind]
-        return torch.roll(src[idx], -B * rot)
-
-    def ext_getter_lde(col, rot):
-        comps = [torch.roll(ext_lde[col * 4 + c], -B * rot) for c in range(4)]
-        return torch.stack(comps, dim=-1)
-
-    like_lde = torch.zeros(nl, dtype=F.I64, device=dev)
-    c_lde = combine_constraints(circuit, getter_lde, ext_getter_lde, alpha, beta,
-                                alpha_c, like_lde, BaseOps, F.ext)
-    # Z_H(x_i) = x_i^N - 1 = shift^N * (w_nl^N)^i - 1: period-B sequence in i
-    wn = F.root_of_unity(nl)
-    ratio = pow(wn, n, F.P)
-    zh_inv = []
-    acc = pow(cfg.shift, n, F.P)
-    for _ in range(B):
-        zh_inv.append(pow((acc - 1) % F.P, F.P - 2, F.P))
-        acc = acc * ratio % F.P
-    zh_inv = F.tensor(zh_inv, dev).repeat(n)
-    q_evals = F.fmul(c_lde, zh_inv[:, None])
-    q_coeffs = poly.coset_coeffs(q_evals.T, cfg.shift)    # (4, NL)
-    q_segments = q_coeffs.reshape(4, B, n).permute(1, 0, 2).reshape(B * 4, n)
-    q_lde = _lde_from_coeffs(q_segments, B, cfg.shift)
-    q_tree = merkle.commit(q_lde.T)
-    q_root = F.to_numpy(q_tree.root)
-    tx.absorb_digest(q_root)
-    timings["quotient"] = time.perf_counter() - t2
-
-    # --- OOD openings --------------------------------------------------------
-    t3 = time.perf_counter()
-    z = F.tensor(tx.challenge_ext(), dev)
-    sched = opening_schedule(circuit, B)
-    coeff_src = {FIXED: keys.fixed_coeffs, INSTANCE: poly.intt(inst) if
-                 circuit.n_instance else inst, DATA: data_coeffs,
-                 ADVICE: adv_coeffs, "ext": ext_coeffs, "quotient": q_segments}
-    w_n = F.root_of_unity(n)
-    openings = {}
-    rots = sorted({r for (_, _, r) in sched})
-    for rot in rots:
-        zr = F.emul_fp(z, pow(w_n, rot, F.P))
-        for kind in (FIXED, INSTANCE, DATA, ADVICE, "ext", "quotient"):
-            idxs = [i for (k, i, rr) in sched if k == kind and rr == rot]
-            if not idxs:
-                continue
-            vals = poly.eval_at_ext(coeff_src[kind][idxs], zr)
-            for i, v in zip(idxs, F.to_numpy(vals)):
-                openings[(kind, i, rot)] = v
-    for key in sched:
-        tx.absorb(openings[key])
-    timings["ood_openings"] = time.perf_counter() - t3
-
-    # --- DEEP composition -----------------------------------------------------
-    t4 = time.perf_counter()
-    gamma = F.tensor(tx.challenge_ext(), dev)
-    pts = poly.domain_points(nl, cfg.shift, dev)          # (NL,)
-    committed = [(k, i, r) for (k, i, r) in sched
-                 if k in (DATA, ADVICE, "ext", "quotient")]
-    lde_src = {DATA: data_lde, ADVICE: adv_lde, "ext": ext_lde,
-               "quotient": q_lde}
-    deep = torch.zeros((nl, 4), dtype=F.I64, device=dev)
-    g_pow = gamma
-    groups = {}
-    for (k, i, r) in committed:
-        groups.setdefault(r, []).append((k, i))
-    for r in sorted(groups):
-        zr = F.emul_fp(z, pow(w_n, r, F.P))
-        inv_d = F.ebatch_inv(F.esub(F.ext(pts), zr.expand(nl, 4)))
-        num = torch.zeros((nl, 4), dtype=F.I64, device=dev)
-        for (k, i) in groups[r]:
-            diff = F.esub(F.ext(lde_src[k][i]),
-                          F.tensor(openings[(k, i, r)], dev).expand(nl, 4))
-            num = F.eadd(num, F.emul(g_pow.expand(nl, 4), diff))
-            g_pow = F.emul(g_pow, gamma)
-        deep = F.eadd(deep, F.emul(num, inv_d))
-    timings["deep"] = time.perf_counter() - t4
-
-    # --- FRI -------------------------------------------------------------------
-    t5 = time.perf_counter()
-    fproof = fri_mod.fri_prove(deep, tx, cfg.fri())
-    timings["fri"] = time.perf_counter() - t5
-
-    # --- query openings ---------------------------------------------------------
-    q_idx = torch.from_numpy(fproof.query_indices).to(dev)
-    idx_all = torch.cat([q_idx, q_idx + nl // 2])
-    tree_openings = {}
-    for name, tree in (("data", data_tree), ("advice", adv_tree),
-                       ("ext", ext_tree), ("quotient", q_tree)):
-        if tree is None:
-            tree_openings[name] = (np.zeros((len(idx_all), 0), np.uint32),
-                                   np.zeros((len(idx_all), 0, 8), np.uint32))
-        else:
-            rows, paths = merkle.open_at(tree, idx_all)
-            tree_openings[name] = (F.to_numpy(rows), F.to_numpy(paths))
-    timings["total"] = time.perf_counter() - t0
-
-    # strip fixed/instance openings from the transmitted proof (verifier
-    # recomputes them); keep data/advice/ext/quotient
-    sent = {k: v for k, v in openings.items()
-            if k[0] in (DATA, ADVICE, "ext", "quotient")}
-    return Proof(data_root, adv_root, ext_root, q_root, sent, fproof,
-                 tree_openings, timings)
+    The one-lane case of :func:`~repro_torch.core.prover_batch.prove_batch`:
+    the port keeps one prover body, and lane ``l`` of an L-lane batch gives
+    the same bytes as this call on lane ``l``'s witness."""
+    from .prover_batch import prove_batch   # prover_batch imports this module
+    return prove_batch(keys, [(advice_np, instance_np, data_np)], label)[0]

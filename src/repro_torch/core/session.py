@@ -305,12 +305,43 @@ class ZKGraphSession:
         return ProofBundle(name if name is not None else plan.name,
                            dict(params), steps, run.result, self.cfg, digest)
 
-    # -- step-level prove entry point ---------------------------------------
+    # -- step-level prove entry points ---------------------------------------
+    def step_shape_key(self, st: ir.Step):
+        """The batching key of one executed plan step: two steps with equal
+        keys share circuit structure, prover config, backend and device, so
+        their witnesses can ride one lane-batched prove
+        (:func:`~repro_torch.core.prover_batch.prove_batch`).  It is the
+        keygen-cache key: the same Keys, the same transcript schedule."""
+        return self.cache._key(st.op, self.cfg)
+
     def prove_step(self, st: ir.Step) -> StepProof:
         """Prove one executed plan step solo (keygen-cached)."""
         self.cache.ensure(st.op, self.cfg)
         proof = st.op.prove(st.advice, st.instance, st.data)
         return StepProof(st.kind, st.shape, st.data_desc, st.instance, proof)
+
+    def prove_steps(self, steps: list) -> list[StepProof]:
+        """Prove same-shaped steps as one lane-batched pass.
+
+        Every step must carry the same :meth:`step_shape_key` (asserted):
+        the lanes share Keys and every launch, and each lane's proof bytes
+        equal what :meth:`prove_step` gives for it alone.  One step takes
+        the solo path.  Returns one :class:`StepProof` per step, in order."""
+        if len(steps) == 1:
+            return [self.prove_step(steps[0])]
+        from . import prover_batch as pvb
+        key0 = self.step_shape_key(steps[0])
+        for st in steps[1:]:
+            assert self.step_shape_key(st) == key0, \
+                "prove_steps lanes must share one circuit shape"
+        for st in steps:
+            self.cache.ensure(st.op, self.cfg)
+        proofs = pvb.prove_batch(
+            steps[0].op.keys,
+            [(st.advice, st.instance, st.data) for st in steps],
+            label=steps[0].op.name)
+        return [StepProof(st.kind, st.shape, st.data_desc, st.instance, pf)
+                for st, pf in zip(steps, proofs)]
 
     # -- verifier side ------------------------------------------------------
     def verify_bytes(self, raw: bytes,

@@ -16,7 +16,8 @@ from . import fri as fri_mod
 from . import merkle
 from . import poly
 from .plonkish import ADVICE, DATA, FIXED, INSTANCE
-from .prover import Keys, Proof, combine_constraints, opening_schedule
+from .prover import (Keys, Proof, _row0_index, combine_constraints,
+                     opening_schedule)
 from .transcript import Transcript
 
 BASIS = [np.eye(4, dtype=np.uint32)[c] for c in range(4)]
@@ -105,9 +106,11 @@ def _verify_impl(keys: Keys, instance_np, proof: Proof, expected_data_root,
         return acc
 
     like = torch.zeros(4, dtype=F.I64, device=dev)  # scalar ext template
+    row0_val = (base_getter(FIXED, _row0_index(circuit), 0) if circuit.gps
+                else like)
     c_at_z = combine_constraints(
         circuit, base_getter, ext_getter, alpha, beta, alpha_c,
-        like, _ScalarExtOps, lambda v: v)
+        like, _ScalarExtOps, lambda v: v, row0_val)
 
     q_at_z = torch.zeros(4, dtype=F.I64, device=dev)
     z_pow_n = F.epow(z, n)

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("poseidon.cu", "ntt.cu")
+SOURCES = ("poseidon.cu", "ntt.cu", "grand_product.cu", "fieldops.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -102,6 +102,12 @@ def load():
             lib.zk_poseidon_permute.restype = i
             lib.zk_ntt_stage.argtypes = [vp, vp, vp, ll, i, i, i, u, i, vp]
             lib.zk_ntt_stage.restype = i
+            lib.zk_grand_product_chunk.argtypes = []
+            lib.zk_grand_product_chunk.restype = i
+            lib.zk_grand_product.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+            lib.zk_grand_product.restype = i
+            lib.zk_fieldops.argtypes = [vp, vp, vp, vp, ll, i, vp]
+            lib.zk_fieldops.restype = i
             _lib = lib
         return _lib
 

@@ -2,8 +2,6 @@
 roots and openings, the Fiat–Shamir challenge stream, FRI, and for the
 ``expand`` operator (n_rows=32, m_edges=20) the keygen LDEs and every field
 of a proof.  The port runs the plain ``torch`` backend on the CPU."""
-import dataclasses
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -137,21 +135,6 @@ def test_expand_keygen_and_every_proof_field(tiny_cfg, port_cfg):
     forged = inst.copy()
     forged[t_op.handles["C_t"].index, 0] += 1
     assert not t_op.verify(forged, t_pf)
-
-
-def test_grand_product_raises_under_both_backends(port_cfg):
-    from repro_torch.core.plonkish import Circuit
-    c = Circuit(16, name="gp")
-    a = c.add_advice("a")
-    c.add_grand_product("perm", [a], [a])
-    for backend in ("torch", "cuda"):
-        cfg = dataclasses.replace(port_cfg, backend=backend)
-        with pytest.raises((NotImplementedError, be.BackendUnavailableError)) \
-                as err:
-            TPV.keygen(c, cfg)
-        if backend == "torch" or torch.cuda.is_available():
-            assert err.type is NotImplementedError
-            assert "ROADMAP Queue 2" in str(err.value)
 
 
 def test_verifier_binds_data_root_and_label(port_cfg):
