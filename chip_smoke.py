@@ -74,13 +74,24 @@ POSEIDON_MODMULS = 4 * (8 * 16 + 14) + 22 * 17        # 942
 # 65,536-row circuit (LDE 262,144) and publication's tables of up to 131,072
 # rows (intt at 131,072, LDE and leaf hashing at 524,288)
 POSEIDON_SHAPES = (1, 63, 64, 65, 130, 262144, 524288)
+# the NTT kernel runs up to 11 stages a pass in shared memory: lengths on
+# either side of one pass (2^10, 2^11, 2^12) and of two (2^22, 2^23, three
+# passes), in batches of 1, 3 and 16, beside the main path's shapes
 NTT_SHAPES = ((1, 64), (7, 32), (9, 128), (2, 3, 16), (4, 65536), (2, 262144),
-              (2, 131072), (2, 524288))
+              (2, 131072), (2, 524288)) + tuple(
+                  (b, 1 << log_n) for log_n in (10, 11, 12, 22, 23)
+                  for b in (1, 3, 16))
 TIMED_POSEIDON = 262144            # leaf hashing of a 65,536-row circuit
 TIMED_NTT = (2, 262144)            # coset LDE of IS5's two data columns
 # running products: the gp path's 65,536-row circuit, and past it up to
-# 2^19; field ops: flat, ragged and the kernel_api path's shapes
-GP_SHAPES = (1, 255, 256, 257, 65536, 131072, 524288)
+# 2^19, the edges of a 512-element Fp4 and a 1,024-element Fp chunk, in 1
+# lane ((n, 4) and (n,)) and in 3 and 4 lanes; each checked GP_REPEATS times,
+# since a look-back scan that reads a stale status word fails only now and
+# then.  Field ops: flat, ragged and the kernel_api path's shapes
+GP_SHAPES = (1, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 65536, 131072,
+             524288)
+GP_LANES_CHECKED = (1, 3, 4)
+GP_REPEATS = 5
 FIELD_SHAPES = ((1,), (257,), (4, 262144), (2, 524288))
 TIMED_GP_EXT = 65536               # the gp path's circuit rows
 TIMED_GP = 131072                  # the kernel_api path's telescoping check
@@ -113,12 +124,12 @@ KERNELS = {
 }
 # kernels a path must launch besides those that name it
 ALSO_ON = {"batch": ("grand_product_ext",)}
-# the __global__ functions each kernel's wrapper launches
+# the __global__ functions each kernel's wrapper launches, and the memset
+# that clears the running products' status words before each launch
 SYMBOLS = {
     "poseidon_permute": ("permute_kernel",),
-    "ntt_stage": ("stage_kernel",),
-    "grand_product_ext": ("scan_chunks_kernel", "scan_totals_kernel",
-                          "apply_offsets_kernel"),
+    "ntt_stage": ("ntt_pass_kernel",),
+    "grand_product_ext": ("running_product_kernel", "Memset"),
     "mulmod": ("fieldops_kernel",),
 }
 SYMBOLS["grand_product"] = SYMBOLS["grand_product_ext"]
@@ -154,29 +165,42 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, symbols, reps: int = 10) -> float:
+def device_ms(torch, fn, symbols, reps: int = 10, traces: int = 3) -> float:
     """The card's own time for one call: the device time of the CUDA
-    kernels whose names contain one of ``symbols``, in a torch.profiler
-    trace of ``reps`` calls, per call.  Unlike :func:`cuda_ms` it leaves out
-    the host's time between the launches.  A 128 MiB write before each call
-    evicts the 50 MB L2 cache, so the inputs come from device memory, as
-    they do on the prover's path."""
+    kernels (and memsets) whose names contain one of ``symbols``, in a
+    torch.profiler trace of ``reps`` calls, per call.  Unlike
+    :func:`cuda_ms` it leaves out the host's time between the launches.  A
+    128 MiB write (a fill kernel, not a memset) before each call evicts the
+    50 MB L2 cache, so the inputs come from device memory, as they do on
+    the prover's path.  A trace now and then comes back without any of the
+    card's activity, so an empty one is taken again, up to ``traces`` in
+    all; if none shows the kernels, this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(1 << 24, dtype=torch.int64, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "at::" not in e.key
-             and any(sym in e.key for sym in symbols))
-    if us <= 0:
-        raise AssertionError(f"the trace shows no device time of {symbols}")
+    for attempt in range(1, traces + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        mine = [e for e in events if "at::" not in e.key
+                and any(sym in e.key for sym in symbols)]
+        us = sum(e.self_device_time_total for e in mine)
+        if us > 0:
+            break
+        log(f"[parity]   trace {attempt} of {traces} shows no device time "
+            f"of {symbols} ({len(events)} device events in all)")
+    else:
+        raise AssertionError(f"{traces} traces show no device time of "
+                             f"{symbols}")
+    log(f"[parity]   device time of {reps} calls from "
+        f"{sorted((e.key[:48], e.count) for e in mine)}")
     return us / reps / 1e3
 
 
@@ -253,6 +277,13 @@ class Smoke:
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms -> {b_ms:.5f} ms "
             f"({by})")
 
+    def device_line(self, name: str, what: str, fn):
+        """Log the device time of one call of ``fn``: at a shape that fills
+        one block, the kernel's fixed latency, which no size below it goes
+        under; at a path's shape, what that path pays a call."""
+        log(f"[parity] {name} at {what}: device time "
+            f"{device_ms(self.torch, fn, SYMBOLS[name]):.5f} ms a call")
+
     # -- 1 ------------------------------------------------------------------
     def phase_build(self):
         from repro_torch.kernels import build
@@ -270,6 +301,7 @@ class Smoke:
     def phase_parity(self):
         import numpy as np
         torch = self.torch
+        from repro_torch.core import backend as be
         from repro_torch.core import field as F
         from repro_torch.kernels.ntt import ops as ntt_ops, ref as ntt_ref
         from repro_torch.kernels.poseidon import ops as pos_ops, ref as pos_ref
@@ -278,6 +310,26 @@ class Smoke:
             rng = np.random.default_rng(seed)
             return torch.from_numpy(
                 rng.integers(0, F.P, size=shape, dtype=np.int64)).to(self.dev)
+
+        def wild(shape, seed):
+            """Canonical values with a tenth replaced by values >= P and a
+            twentieth by negative int64 values, the first four by the int64
+            extremes, -1 and P; made on the card from ``seed``.  The NTT and
+            the running products reduce any int64 as their plain versions
+            do (floored mod P)."""
+            g = torch.Generator(device=self.dev).manual_seed(seed)
+            x = torch.randint(0, F.P, shape, generator=g, device=self.dev)
+            pick = torch.rand(shape, generator=g, device=self.dev)
+            i64 = torch.iinfo(torch.int64)
+            big = torch.randint(i64.min, i64.max, shape, generator=g,
+                                device=self.dev)
+            x = torch.where(pick < 0.05, big, x)
+            x = torch.where((pick >= 0.05) & (pick < 0.1), x % F.P + F.P, x)
+            x = torch.where((pick >= 0.1) & (pick < 0.15), -x, x)
+            edge = torch.tensor([i64.min, i64.max, -1, F.P], device=self.dev)
+            flat = x.view(-1)
+            flat[:4] = edge[:flat.numel()]
+            return x
 
         err = 0
         for n in POSEIDON_SHAPES:
@@ -303,8 +355,10 @@ class Smoke:
         err = 0
         for shape in NTT_SHAPES:
             for inverse in (False, True):
-                x = rand(shape, sum(shape) + inverse)
+                x = wild(shape, sum(shape) + inverse)
+                before = be.launch_counts()["ntt_stage"]
                 got = ntt_ops.ntt(x, inverse=inverse)
+                launches = be.launch_counts()["ntt_stage"] - before
                 want = ntt_ref.ntt_ref(x, inverse=inverse)
                 torch.cuda.synchronize()
                 e = int((got - want).abs().max())
@@ -313,10 +367,19 @@ class Smoke:
                 plain = cuda_ms(
                     torch, lambda: ntt_ref.ntt_ref(x, inverse=inverse), reps=3)
                 log(f"[parity] ntt {shape} inverse={inverse}: max_abs_err={e}"
-                    f" kernel {ms:.4f} ms plain {plain:.4f} ms")
+                    f" launches {launches} kernel {ms:.4f} ms plain "
+                    f"{plain:.4f} ms")
                 if e != 0:
                     raise AssertionError(
                         f"ntt kernel != plain at {shape} inverse={inverse}")
+                log_n = shape[-1].bit_length() - 1
+                if launches != len(ntt_ops._passes(log_n)) or (
+                        log_n <= 19 and launches > 2):
+                    raise AssertionError(f"ntt at {shape} made {launches} "
+                                         f"launches")
+                if shape == (1, 1 << ntt_ops.MAX_STAGES) and not inverse:
+                    self.device_line("ntt_stage", f"{shape} (one block)",
+                                     lambda: ntt_ops.ntt(x, inverse=inverse))
                 if shape == TIMED_NTT and not inverse:
                     b, n = shape
                     log_n = n.bit_length() - 1
@@ -326,30 +389,51 @@ class Smoke:
                                 b * (n // 2) * log_n * IMADS_PER_MODMUL,
                                 2 * b * n * 8)
         self.kernels["ntt_stage"]["max_abs_err"] = err
-        self.parity_running_products(rand)
+        self.parity_running_products(wild)
         self.parity_field_ops(rand)
 
-    def parity_running_products(self, rand):
+    def parity_running_products(self, wild):
         torch = self.torch
+        from repro_torch.core import backend as be
         from repro_torch.kernels.grand_product import ops, ref
         for ext, name in ((True, "grand_product_ext"),
                           (False, "grand_product")):
             kernel = ops.grand_product_ext if ext else ops.grand_product
             plain = ref.grand_product_ext_ref if ext else ref.grand_product_ref
             err = 0
-            for n in GP_SHAPES:
-                x = rand((n, 4) if ext else (n,), n + ext)
-                got, want = kernel(x), plain(x)
-                torch.cuda.synchronize()
-                e = int((got - want).abs().max())
-                err = max(err, e)
+            for lanes, n in ((lanes, n) for lanes in GP_LANES_CHECKED
+                             for n in GP_SHAPES):
+                shape = ((n,) if lanes == 1 else (lanes, n)) + (
+                    (4,) if ext else ())
+                x = wild(shape, 10 * n + 2 * lanes + ext)
+                want = plain(x)
+                before = be.launch_counts()[name]
+                for _ in range(GP_REPEATS):
+                    got = kernel(x)
+                    torch.cuda.synchronize()
+                    e = int((got - want).abs().max())
+                    err = max(err, e)
+                    if e != 0 or got.shape != want.shape:
+                        raise AssertionError(f"{name} kernel != plain at "
+                                             f"{shape}")
+                launches = be.launch_counts()[name] - before
+                if launches != GP_REPEATS:
+                    raise AssertionError(f"{name} made {launches} launches "
+                                         f"in {GP_REPEATS} calls")
                 ms = cuda_ms(torch, lambda: kernel(x))
-                plain_ms = cuda_ms(torch, lambda: plain(x), reps=3)
-                log(f"[parity] {name} n={n}: max_abs_err={e} kernel "
-                    f"{ms:.4f} ms plain {plain_ms:.4f} ms")
-                if e != 0:
-                    raise AssertionError(f"{name} kernel != plain at n={n}")
-                if n == (TIMED_GP_EXT if ext else TIMED_GP):
+                if lanes == 1 and n == 1:
+                    self.device_line(name, f"{shape} (one block)",
+                                     lambda: kernel(x))
+                if ext and lanes == GP_LANES and n == GP_ROWS:
+                    self.device_line(name, f"{shape} (the batch path's)",
+                                     lambda: kernel(x))
+                timed = lanes == 1 and n == (TIMED_GP_EXT if ext else TIMED_GP)
+                plain_ms = (cuda_ms(torch, lambda: plain(x), reps=3)
+                            if lanes == 1 else None)
+                log(f"[parity] {name} {shape}: max_abs_err={e} in "
+                    f"{GP_REPEATS} calls, one launch each; kernel {ms:.4f} ms"
+                    + (f" plain {plain_ms:.4f} ms" if plain_ms else ""))
+                if timed:
                     # n products, each FP4_MODMULS modmuls (1 in the base
                     # field); (n, 4) or (n,) int64 read once, written once
                     self.record(name, lambda: kernel(x), ms, plain_ms,
@@ -460,12 +544,19 @@ class Smoke:
                                           row_limit=25)
         (out / "prove_is5_top.txt").write_text(table)
         from torch.autograd import DeviceType
-        dev_s = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA) / 1e6
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in events) / 1e6
         untraced = self.main["prove_s"]
         log(f"[trace] device busy {dev_s:.4f} s in one prove: "
             f"{100 * dev_s / untraced:.1f}% of the untraced prove's "
             f"{untraced:.3f} s wall (the traced one took {wall:.3f} s)")
+        for name in ("poseidon_permute", "ntt_stage"):     # IS5's kernels
+            mine = [e for e in events if "at::" not in e.key and any(
+                sym in e.key for sym in SYMBOLS[name])]
+            log(f"[trace] {name}: "
+                f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms "
+                f"of device time in {sum(e.count for e in mine)} launches")
         for line in table.splitlines()[:16]:
             log(f"[trace] {line}")
 

@@ -54,7 +54,7 @@ class ComputeBackend:
     description: str
     permute: Callable          # (..., 16) int64 -> (..., 16)
     ntt: Callable              # (..., n), inverse=False -> (..., n)
-    grand_product_ext: Callable  # (n, 4) -> (n, 4) exclusive Fp4 products
+    grand_product_ext: Callable  # (L?, n, 4) -> exclusive Fp4 products on n
 
 
 def _cuda_permute(states):

@@ -228,10 +228,9 @@ def build_ext_columns(circuit: Circuit, getter_n, like_n, alpha, beta):
         ratio = F.emul(f1, F.ebatch_inv(f2))
         # Eq. (2) exclusive running product: Z[0]=1, Z[i]=prod_{j<i} —
         # dispatched (cuda: the running-product kernel; torch: plain), one
-        # (N, 4) call per lane
+        # (L, N, 4) call for every lane
         gpe = be.active().grand_product_ext
-        cols.append(torch.stack([gpe(r) for r in ratio.reshape(-1, n, 4)])
-                    .reshape(ratio.shape))
+        cols.append(gpe(ratio.reshape(-1, n, 4)).reshape(ratio.shape))
     if not cols:
         return like_n.new_zeros(tuple(like_n.shape[:-1]) + (0, n, 4))
     return torch.stack(cols, dim=-3)

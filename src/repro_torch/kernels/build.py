@@ -20,6 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("poseidon.cu", "ntt.cu", "grand_product.cu", "fieldops.cu")
+HEADERS = ("montgomery.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -41,7 +42,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -100,11 +101,12 @@ def load():
                             ctypes.c_uint)
             lib.zk_poseidon_permute.argtypes = [vp, vp, vp, ll, i, vp]
             lib.zk_poseidon_permute.restype = i
-            lib.zk_ntt_stage.argtypes = [vp, vp, vp, ll, i, i, i, u, i, vp]
-            lib.zk_ntt_stage.restype = i
-            lib.zk_grand_product_chunk.argtypes = []
-            lib.zk_grand_product_chunk.restype = i
-            lib.zk_grand_product.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+            lib.zk_ntt_pass.argtypes = [vp, vp, vp, ll, i, i, i, i, i, u, i,
+                                        vp]
+            lib.zk_ntt_pass.restype = i
+            lib.zk_grand_product_scratch.argtypes = [ll, ll, i]
+            lib.zk_grand_product_scratch.restype = ll
+            lib.zk_grand_product.argtypes = [vp, vp, vp, ll, ll, i, i, vp]
             lib.zk_grand_product.restype = i
             lib.zk_fieldops.argtypes = [vp, vp, vp, vp, ll, i, vp]
             lib.zk_fieldops.restype = i

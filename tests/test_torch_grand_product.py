@@ -62,6 +62,27 @@ def test_grand_product_ext_plain_equals_reference(n):
         torch.from_numpy(x)).numpy(), want)
 
 
+@pytest.mark.parametrize("n", [1, 257, 1024, 1025])
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("ext", [False, True], ids=["fp", "fp4"])
+def test_running_products_over_lanes_equal_reference_lane_by_lane(ext, lanes,
+                                                                  n):
+    """(L, n[, 4]) in, each lane's exclusive products out; any int64 values
+    (negative, >= P) are taken mod P, floored, as the kernel takes them."""
+    shape = (lanes, n, 4) if ext else (lanes, n)
+    rng = np.random.default_rng(10 * n + lanes + ext)
+    x = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                     size=shape, dtype=np.int64)
+    edge = np.array([-1, TF.P, np.iinfo(np.int64).min], np.int64)
+    x.reshape(-1)[:3] = edge[:x.size]
+    ours = t_gops.grand_product_ext if ext else t_gops.grand_product
+    got = ours(torch.from_numpy(x)).numpy()
+    assert got.shape == shape
+    ref = r_gref.grand_product_ext_ref if ext else r_gref.grand_product_ref
+    for k in range(lanes):
+        np.testing.assert_array_equal(got[k], np.asarray(ref(_j(x[k] % TF.P))))
+
+
 @pytest.mark.parametrize("ext", [False, True], ids=["fp", "fp4"])
 def test_grand_product_plain_equals_interpret_kernel(ext):
     shape = (257, 4) if ext else (257,)
@@ -140,7 +161,9 @@ def test_wrappers_refuse_wrong_shapes():
     with pytest.raises(ValueError):
         t_gops.grand_product_ext(torch.zeros((8, 3), dtype=torch.int64))
     with pytest.raises(ValueError):
-        t_gops.grand_product(torch.zeros((8, 4), dtype=torch.int64))
+        t_gops.grand_product_ext(torch.zeros((2, 2, 8, 4), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        t_gops.grand_product(torch.zeros((2, 8, 4), dtype=torch.int64))
     with pytest.raises(ValueError):
         t_fops.mulmod(torch.zeros(4, dtype=torch.int64),
                       torch.zeros(5, dtype=torch.int64))
@@ -244,4 +267,4 @@ def test_gp_column_goes_through_the_dispatched_accumulator(gp_pair,
     want = _canonical(TPV.prove(t_keys, t_adv.copy(), inst))
     keys_cuda = dataclasses.replace(t_keys, backend="cuda")
     assert _canonical(TPV.prove(keys_cuda, t_adv.copy(), inst)) == want
-    assert calls == [("torch", (64, 4)), ("cuda", (64, 4))]
+    assert calls == [("torch", (1, 64, 4)), ("cuda", (1, 64, 4))]

@@ -1,9 +1,10 @@
 """The plain versions of the port's two kernels against the reference: the
 Poseidon permutation and the NTT, each held against ``repro``'s pure-jnp
 oracle and its Pallas kernel run in interpret mode, at the padding-edge
-shapes ``tests/test_backend.py`` uses, with exact equality.  The CUDA
-kernels themselves are held against these plain versions on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
+shapes ``tests/test_backend.py`` uses, with exact equality; and what the
+CUDA NTT's host side computes (its pass plan, its Montgomery twiddles).
+The CUDA kernels themselves are held against these plain versions on the
+card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -87,6 +88,45 @@ def test_ntt_tables_equal_reference():
             for a, b in zip(TP._stage_twiddles(n, inv),
                             RP._stage_twiddles(n, inv)):
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("log_n", list(range(1, 20)) + [27])
+def test_ntt_pass_plan_covers_every_stage_once(log_n):
+    """The kernel's launches: every stage once, in order, at most
+    MAX_STAGES a pass, ceil(log_n / MAX_STAGES) passes, so at most two for
+    every length the prover uses (up to 2^19)."""
+    plan = t_ntt_ops._passes(log_n)
+    assert [s for s0, ks in plan for s in range(s0, s0 + ks)] == \
+        list(range(log_n))
+    assert all(1 <= ks <= t_ntt_ops.MAX_STAGES == 11 for _, ks in plan)
+    assert len(plan) == -(-log_n // t_ntt_ops.MAX_STAGES)
+    assert len(plan) <= 2 if log_n <= 19 else len(plan) == 3
+    assert t_ntt_ops._passes(0) == []
+
+
+def test_ntt_twiddles_are_the_stage_tables_in_montgomery_form():
+    r_inv = pow(1 << 32, RF.P - 2, RF.P)
+    for n in (2, 16, 4096):
+        for inv in (False, True):
+            tw = t_ntt_ops._twiddles(n, inv, torch.device("cpu"))
+            assert tw.dtype == torch.int32 and tw.shape == (n - 1,)
+            want = np.concatenate(RP._stage_twiddles(n, inv)).astype(np.int64)
+            np.testing.assert_array_equal(
+                tw.numpy().astype(np.int64) * r_inv % RF.P, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 2048), (3, 4096)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_takes_any_int64_as_the_reference_takes_it_mod_p(shape, inverse):
+    """One contract for the kernel and its plain version: any int64 in,
+    reduced mod P, floored (values >= P and negative values included)."""
+    rng = np.random.default_rng(sum(shape) + inverse)
+    x = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                     size=shape, dtype=np.int64)
+    x[0, :4] = [-1, RF.P, -RF.P - 1, np.iinfo(np.int64).min]
+    got = t_ntt_ops.ntt(_t(x), inverse=inverse).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(RP.ntt_ref(_j(x % RF.P), inverse=inverse)))
 
 
 def test_compress_hash_rows_hash_bytes_equal_reference():
